@@ -1,7 +1,7 @@
-"""car_racing_tpu — a TPU-native framework for car-racing control and planning.
+"""car_racing_tpu — a JAX framework for car-racing control and planning.
 
 A from-scratch re-design of the capabilities of HybridRobotics/car-racing
-(reference mounted at /root/reference) built on JAX / XLA / Pallas / pjit:
+built on JAX / XLA / Pallas / shard_map:
 
 - ``ops``      jittable compute primitives: track geometry, vehicle dynamics,
                Bezier curves, and the interior-point / Riccati solver core that
@@ -13,6 +13,9 @@ A from-scratch re-design of the capabilities of HybridRobotics/car-racing
 - ``parallel`` device-mesh sharding of branch/scenario sweeps (shard_map +
                collectives instead of ROS/multiprocess IPC).
 - ``racing``   offboard simulator, plotting/animation, realtime frontend.
+
+Every compiled entry point runs its matmuls at full f32 (``utils/numerics``),
+not the TF32 an H100 would otherwise use.
 """
 
 __version__ = "0.1.0"

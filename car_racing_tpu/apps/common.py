@@ -7,7 +7,7 @@ import os
 import numpy as np
 
 from ..ops import track as track_ops
-from ..racing import plotting, simulator, vehicles
+from ..racing import simulator, vehicles
 from ..utils import params
 from ..utils.constants import X_DIM
 
@@ -78,6 +78,8 @@ def finish(sim, args, name_prefix, racing_game=False):
                 "last planner dispatch per-branch Newton iters: "
                 f"{[int(v) for v in iters]}"
             )
+    if args.get("plotting") or args.get("animation"):
+        from ..racing import plotting  # matplotlib only when asked for
     if args.get("plotting"):
         os.makedirs("media/plots", exist_ok=True)
         plotting.plot_simulation(sim, save_path=f"media/plots/{name_prefix}_traj.png")

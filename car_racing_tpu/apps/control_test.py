@@ -8,7 +8,7 @@ import argparse
 
 from . import common
 from ..racing import policies
-from ..utils import params
+from ..utils import compile_cache, params
 
 
 def tracking(args):
@@ -35,6 +35,7 @@ def tracking(args):
 
 
 def main():
+    compile_cache.enable()
     parser = argparse.ArgumentParser()
     parser.add_argument("--ctrl-policy", type=str, default="mpc-lti")
     parser.add_argument("--simulation", action="store_true")

@@ -4,7 +4,7 @@ import argparse
 
 from . import common
 from ..racing import policies, vehicles
-from ..utils import params
+from ..utils import compile_cache, params
 
 
 def ilqr_racing(args):
@@ -32,6 +32,7 @@ def ilqr_racing(args):
 
 
 def main():
+    compile_cache.enable()
     parser = argparse.ArgumentParser()
     parser.add_argument("--simulation", action="store_true")
     parser.add_argument("--plotting", action="store_true")

@@ -16,7 +16,7 @@ import numpy as np
 
 from . import common
 from ..racing import policies
-from ..utils import params
+from ..utils import compile_cache, params
 
 
 def fused_protocol(args):
@@ -120,6 +120,7 @@ def lmpc_racing(args):
 
 
 def main():
+    compile_cache.enable()
     parser = argparse.ArgumentParser()
     parser.add_argument("--track-layout", type=str, default="l_shape")
     parser.add_argument("--lap-number", type=int, default=7)

@@ -8,7 +8,7 @@ import argparse
 
 from . import common
 from ..racing import policies, vehicles
-from ..utils import params
+from ..utils import compile_cache, params
 
 
 def racing(args):
@@ -34,6 +34,7 @@ def racing(args):
 
 
 def main():
+    compile_cache.enable()
     parser = argparse.ArgumentParser()
     parser.add_argument("--simulation", action="store_true")
     parser.add_argument("--plotting", action="store_true")

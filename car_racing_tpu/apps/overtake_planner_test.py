@@ -16,7 +16,7 @@ import numpy as np
 
 from . import common
 from ..racing import policies, vehicles
-from ..utils import params
+from ..utils import compile_cache, params
 
 
 def racing_overtake(args):
@@ -140,6 +140,7 @@ def racing_overtake(args):
 
 
 def main():
+    compile_cache.enable()
     parser = argparse.ArgumentParser()
     parser.add_argument("--track-layout", type=str, default="l_shape")
     parser.add_argument("--lap-number", type=int, default=4)

@@ -9,6 +9,7 @@ import numpy as np
 from . import common
 from ..models import system_identification as sysid
 from ..racing import policies
+from ..utils import compile_cache
 
 
 def linear_time_invariant(args):
@@ -30,6 +31,7 @@ def linear_time_invariant(args):
 
 
 def main():
+    compile_cache.enable()
     parser = argparse.ArgumentParser()
     parser.add_argument("--track-layout", type=str, default="l_shape")
     parser.add_argument("--save", action="store_true")

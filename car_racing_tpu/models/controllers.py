@@ -1,7 +1,7 @@
 """Controller solve functions — pure, jitted, vmappable.
 
 Each controller from the reference's control layer
-(car_racing/control/control.py) re-built TPU-first:
+(car_racing/control/control.py) re-built accelerator-first:
 
 - :func:`pid`      (reference control.py:15-25)
 - :func:`lqr`      (control.py:28-61)   — Riccati fixed point via lax.scan
@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ops import ipm, ocp, riccati
+from ..utils import numerics
 from ..utils.constants import U_DIM, X_DIM
 from ..utils.params import (
     ILQRParam,
@@ -44,7 +45,7 @@ def target_state(vt, eyt, dtype=jnp.float32):
 # ---------------------------------------------------------------------------
 
 
-@jax.jit
+@numerics.jit
 def pid(xcurv: jax.Array, xtarget: jax.Array) -> jax.Array:
     delta = -0.6 * (xcurv[5] - xtarget[5]) - 0.9 * xcurv[3]
     a = 1.5 * (xtarget[0] - xcurv[0])
@@ -56,7 +57,7 @@ def pid(xcurv: jax.Array, xtarget: jax.Array) -> jax.Array:
 # ---------------------------------------------------------------------------
 
 
-@jax.jit
+@numerics.jit
 def lqr(xcurv: jax.Array, xtarget: jax.Array, param: LQRParam) -> jax.Array:
     _, K = riccati.dare_iterate(param.A, param.B, param.Q, param.R, param.max_iter)
     return -K @ (xcurv - xtarget)
@@ -85,7 +86,7 @@ def _tracking_qp(param, sys_param: SystemParam, track_width, x0, xtarget, extra_
     return ipm.QP(H=H, g=g, C=C, d=d, E=E, e=e), phi, G
 
 
-@partial(jax.jit, static_argnames=("return_traj", "kkt"))
+@partial(numerics.jit, static_argnames=("return_traj", "kkt"))
 def mpc_lti(
     xcurv: jax.Array,
     xtarget: jax.Array,
@@ -105,8 +106,8 @@ def mpc_lti(
     with the associative-scan (O(log N) depth) backward pass and rollout
     (riccati.tvlqr_backward_parallel — SURVEY §5.7's horizon-parallel
     factorization).  All return the same solution (parity tests:
-    tests/test_ipm.py); see README/CROSSOVER.json for the measured
-    crossovers.
+    tests/test_ipm.py); ``python -m car_racing_tpu.utils.crossover``
+    measures the crossover on the attached device.
 
     Returns u_0 (and optionally (U, X) open-loop trajectories).
     """
@@ -176,7 +177,7 @@ def _ilqr_cost_terms(param, xvar, uvar, xtarget, obs_traj, agent_half, obs_half)
     return l_x, l_u, l_xx, l_uu
 
 
-@partial(jax.jit, static_argnames=("return_seq",))
+@partial(numerics.jit, static_argnames=("return_seq",))
 def ilqr(
     xcurv: jax.Array,
     xtarget: jax.Array,
@@ -278,6 +279,13 @@ def ilqr(
 WARM_SLACK_MAX = 10.0
 WARM_LAM_MAX = 2e4
 WARM_S_MAX = 100.0
+# A tracker solve whose KKT residual ends above this failed: its iterate
+# is nowhere near the feasible set, and warm-starting the next step from
+# it compounds (a racing-game lane on the GPU went from 2.9e6 to 1e8 over
+# ten steps, steering decaying to zero, and left the track).  The caller
+# solves the next step cold instead.  Healthy solves, converged or not,
+# end below it: 4209 tracker solves in 32 CPU fleet lanes peaked at 6.0e4.
+WARM_RES_MAX = 1e5
 
 
 def obstacle_gate_mask(xcurv, obs_first_s, lap_length, safety_time=2.0):
@@ -316,7 +324,7 @@ def _cbf_nlp(
     alpha 0.6, interpolated targets) — reference control.py:476-607 and
     control.py:251-473.
 
-    TPU-first structure: the decision vector z = [U; slacks] enters the
+    Accelerator-first structure: the decision vector z = [U; slacks] enters the
     CBF rows only through the 2(N+1) scalars (s_k, ey_k) = affine maps of
     U — so the constraint values AND Jacobians are written in closed form
     (powers of the offsets chained through the condensed rows) and handed
@@ -472,7 +480,7 @@ def _cbf_nlp(
     return U, states_of(sol.z), sol
 
 
-@partial(jax.jit, static_argnames=("return_traj", "iters"))
+@partial(numerics.jit, static_argnames=("return_traj", "iters"))
 def mpccbf(
     xcurv: jax.Array,
     xtarget: jax.Array,
@@ -521,7 +529,7 @@ def mpccbf(
     return U[0]
 
 
-@partial(jax.jit, static_argnames=("iters", "iters_warm"))
+@partial(numerics.jit, static_argnames=("iters", "iters_warm"))
 def mpc_multi_agents(
     xcurv: jax.Array,
     x_targets: jax.Array,  # (N, X_DIM) interpolated overtake targets
@@ -580,7 +588,7 @@ def mpc_multi_agents(
     return U[0], U, X, sol
 
 
-@jax.jit
+@numerics.jit
 def mpc_multi_agents_nocbf(
     xcurv: jax.Array,
     x_targets: jax.Array,  # (N, X_DIM) interpolated overtake targets
@@ -678,7 +686,7 @@ def _stage_shift(a: jax.Array, axis: int = 0) -> jax.Array:
     return jnp.take(a, idx, axis=axis)
 
 
-@partial(jax.jit, static_argnames=("N", "n_obs"))
+@partial(numerics.jit, static_argnames=("N", "n_obs"))
 def shift_cbf_warm(sol: ipm.IPMSolution, N: int, n_obs: int):
     """Shift a CBF-problem primal-DUAL iterate one control period forward
     (repeat the last stage) — the warm start for the next step's solve,
@@ -725,7 +733,7 @@ def shift_cbf_warm(sol: ipm.IPMSolution, N: int, n_obs: int):
 # ---------------------------------------------------------------------------
 
 
-@partial(jax.jit, static_argnames=("num_horizon",))
+@partial(numerics.jit, static_argnames=("num_horizon",))
 def lmpc(
     xcurv: jax.Array,
     param: LMPCParam,

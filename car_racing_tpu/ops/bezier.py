@@ -11,8 +11,10 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+from ..utils import numerics
 
-@jax.jit
+
+@numerics.jit
 def bezier_curve(control_points: jax.Array, t: jax.Array) -> jax.Array:
     """Evaluate a cubic Bezier at parameters t.
 

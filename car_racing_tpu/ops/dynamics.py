@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ops import track as track_ops
+from ..utils import numerics
 from ..utils.constants import X_DIM
 
 
@@ -126,7 +127,7 @@ def curv_step(track: track_ops.Track, params: BicycleParams, xcurv, u, dt):
     return xcurv_next
 
 
-@partial(jax.jit, static_argnames=("control_dt", "sub_dt", "unroll", "backend"))
+@partial(numerics.jit, static_argnames=("control_dt", "sub_dt", "unroll", "backend"))
 def propagate(
     track: track_ops.Track,
     params: BicycleParams,
@@ -144,37 +145,30 @@ def propagate(
     control step (base.py:909-928) with one ``lax.scan``; curvature is
     re-looked-up every substep as in the reference.
 
-    ``unroll``: the substep body is a handful of tiny elementwise ops, so
-    the un-unrolled scan is mostly sequential loop overhead on TPU —
-    ``unroll=10`` lets XLA fuse 10 substeps per scan iteration (measured on
-    v5e: 1.73 -> 0.86 ms per 100-substep control period; diminishing
-    returns and 10x compile time beyond ~25).  The default stays 1 because
-    unrolling changes XLA's fusion/FMA contraction choices *differently per
-    compilation context*, which breaks the framework's bitwise fused-vs-host
-    agreement and the pinned goldens; throughput paths with no host twin
-    (the racing-game fleet) opt in.
+    ``unroll``: lets XLA fuse that many substeps per scan iteration.  The
+    default stays 1 because unrolling changes XLA's fusion/FMA contraction
+    choices *differently per compilation context*, which breaks the
+    framework's bitwise fused-vs-host agreement and the pinned goldens;
+    throughput paths with no host twin (the sharded fleets) opt in.  Only
+    the scan reads it: ``"auto"`` on CUDA runs the kernel and drops it.
 
-    ``backend``: ``"auto"`` (the default) selects ``"pallas"`` on TPU and
-    ``"scan"`` everywhere else.  ``"pallas"`` runs the whole period as ONE
-    Pallas kernel (ops/pallas_kernels.propagate_fused): slope-measured on
-    v5e at 0.193 ms vs the scan's 1.689 ms per 100-substep period (8.8x) —
-    the scan's cost is per-launch latency of its ~dozen tiny kernels per
-    substep, roughly HALF of every closed-loop step.  The kernel is
-    numerically equivalent (max |diff| ~1e-9 over a full period; in-kernel
-    atan2 since Mosaic lowers neither atan nor atan2) but NOT bitwise
-    identical to the scan, so the CPU goldens and fused-vs-host bitwise
-    gates — all recorded against the scan — certify the scan path, while
-    tests/test_tpu_native.py (run by the bench harness on real TPU) gates
-    the fused-kernel path against them (f32 only; TPU only).
+    ``backend``: ``"scan"`` is the ``lax.scan`` above; ``"pallas"`` runs the
+    whole period as ONE GPU kernel (ops/pallas_kernels.propagate_fused),
+    numerically equivalent to the scan but not bitwise identical.
+    ``"auto"`` (the default) picks by the platform the computation is
+    lowered for — that is, where its inputs live, not the process default:
+    the kernel on CUDA, the scan everywhere else.  The CPU goldens and
+    bitwise fused-vs-host gates therefore certify the scan, and the
+    ``gpu``-marked tests gate the kernel against it.
     """
     if backend == "auto":
-        # the fused kernel is TPU-only (Mosaic); everywhere else —
-        # including the CPU test mesh, whose goldens and fused-vs-host
-        # bitwise gates are recorded against the scan — keep the scan.
-        # On TPU the kernel's ~1e-9-per-period deviation only shifts
-        # device-side trajectories (platforms already differ at that
-        # level) and buys back ~1.5 ms of every closed-loop step.
-        backend = "pallas" if jax.default_backend() == "tpu" else "scan"
+        return jax.lax.platform_dependent(
+            track, params, xglob, xcurv, u,
+            cuda=partial(propagate, control_dt=control_dt, sub_dt=sub_dt,
+                         backend="pallas"),
+            default=partial(propagate, control_dt=control_dt, sub_dt=sub_dt,
+                            unroll=unroll, backend="scan"),
+        )
     if backend == "pallas":
         from . import pallas_kernels
 
@@ -182,6 +176,8 @@ def propagate(
             track, params, xglob, xcurv, u, control_dt=control_dt,
             sub_dt=sub_dt,
         )
+    if backend != "scan":
+        raise ValueError(f"unknown dynamics backend {backend!r}")
     n_sub = int(round(control_dt / sub_dt))
 
     def body(carry, _):
@@ -196,7 +192,7 @@ def propagate(
     return xglob, xcurv
 
 
-@jax.jit
+@numerics.jit
 def process_noise(key: jax.Array, xcurv: jax.Array) -> jax.Array:
     """Truncated-Gaussian process noise on (vx, vy, wz) with the reference's
     scale/clip constants (base.py:930-939)."""
@@ -222,7 +218,7 @@ def linearize(track: track_ops.Track, params: BicycleParams, xcurv, u, dt):
     return A, B, C
 
 
-@partial(jax.jit, static_argnames=("dt", "n_steps"))
+@partial(numerics.jit, static_argnames=("dt", "n_steps"))
 def const_velocity_prediction(track: track_ops.Track, xcurv, xglob, dt, n_steps: int):
     """n-step constant-velocity (zero-input kinematic) prediction used for
     obstacle forecasting (reference racing/offboard.py:51-94): velocities

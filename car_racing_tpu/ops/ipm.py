@@ -1,13 +1,13 @@
 """Primal-dual interior-point NLP/QP solver, from scratch, in JAX.
 
-This is the TPU-native replacement for every foreign-solver call in the
+This replaces every foreign-solver call in the
 reference (CasADi ``Opti``/IPOPT at car_racing/control/control.py:241,449,
 595,699 and planning/overtake_{path,traj}_planner.py; cvxopt at
 control/lmpc_helper.py:360): one jittable, vmappable solver for
 
     min_z  f(z)     s.t.   c_ineq(z) >= 0,   c_eq(z) = 0.
 
-Design notes (TPU-first):
+Design notes (accelerator-first):
 - **Fixed iteration count, masked convergence.** No data-dependent Python
   control flow: the solver runs ``iters`` Newton iterations under
   ``lax.scan`` and freezes the iterate once the KKT residual passes ``tol``
@@ -24,7 +24,7 @@ Design notes (TPU-first):
   no backtracking loop.
 - **Batched.** Everything is shaped for ``vmap`` over problem batches
   (overtake branches, vehicles, scenarios); the batched inner dense solves
-  map onto XLA's batched factorizations on the MXU.
+  map onto XLA's batched factorizations.
 
 The condensed-OCP adapters living in :mod:`car_racing_tpu.ops.ocp` reduce
 receding-horizon problems to this dense form; the horizon-structured
@@ -40,23 +40,7 @@ from typing import Callable, NamedTuple
 import jax
 import jax.numpy as jnp
 
-
-def _highp(fn):
-    """Trace the wrapped solver under full-precision f32 matmuls.
-
-    TPU f32 matmuls default to bfloat16 passes; inside ill-conditioned
-    interior-point iterations that drifts the Newton directions enough to
-    change which active set the solver lands on (observed: TPU-f32 mpccbf
-    disagreeing with CPU-f32/f64).  Control-grade numerics want exact f32.
-    """
-    from functools import wraps
-
-    @wraps(fn)
-    def wrapped(*args, **kwargs):
-        with jax.default_matmul_precision("float32"):
-            return fn(*args, **kwargs)
-
-    return wrapped
+from ..utils import numerics
 
 
 # ---------------------------------------------------------------------------
@@ -160,10 +144,9 @@ def _kkt_residual(grad_L, c_i, c_e, s, lam):
 
 
 @partial(
-    jax.jit,
+    numerics.jit,
     static_argnames=("f", "c_ineq", "c_eq", "iters", "hessian_floor", "gauss_newton", "hessian_reg"),
 )
-@_highp
 def solve(
     f: Callable,
     c_ineq: Callable,
@@ -343,8 +326,7 @@ class QP:
 jax.tree_util.register_dataclass(QP)
 
 
-@partial(jax.jit, static_argnames=("iters",))
-@_highp
+@partial(numerics.jit, static_argnames=("iters",))
 def solve_qp(qp: QP, z0: jax.Array, *, iters: int = 30, tol: float | None = None) -> IPMSolution:
     """Specialized primal-dual IPM for dense convex QPs.
 
@@ -405,12 +387,12 @@ def solve_qp(qp: QP, z0: jax.Array, *, iters: int = 30, tol: float | None = None
         a_s = jnp.minimum(1.0, jnp.min(neg(ds, s)))
         a_l = jnp.minimum(1.0, jnp.min(neg(dlam, lam)))
 
-        # non-finite step guard (same containment as solve_qp_nl): the
-        # TPU-f32 LU on the bordered LMPC KKT can emit NaN when the
-        # selected safe-set points degenerate (observed near the lap wrap:
+        # non-finite step guard (same containment as solve_qp_nl): an
+        # accelerator's f32 LU on the bordered LMPC KKT can emit NaN when
+        # the selected safe-set points degenerate (near the lap wrap:
         # clamped select_points windows repeat rows, the hull block goes
-        # singular, CPU f32 survives with large-but-finite pivots while
-        # TPU f32 NaNs).  Skip the step instead of poisoning the iterate —
+        # singular; CPU f32 survives with large-but-finite pivots).  Skip
+        # the step instead of poisoning the iterate —
         # the caller gets the last finite point with converged=False and
         # closed loops continue on the warm start.
         ok = (
@@ -451,19 +433,18 @@ def solve_qp(qp: QP, z0: jax.Array, *, iters: int = 30, tol: float | None = None
 
 
 # ---------------------------------------------------------------------------
-# Batched QP solver over leading batch dims, with the Pallas lane-major
-# Cholesky kernel for the Newton systems (ops/pallas_kernels.py).
+# Batched QP solver over leading batch dims; the Newton systems go through
+# the batched SPD solves of ops/pallas_kernels.py.
 # ---------------------------------------------------------------------------
 
 
-@partial(jax.jit, static_argnames=("iters",))
-@_highp
+@partial(numerics.jit, static_argnames=("iters",))
 def solve_qp_batch(qp: QP, z0: jax.Array, *, iters: int = 30, tol: float | None = None) -> IPMSolution:
     """Batched :func:`solve_qp`: every QP field carries a leading batch dim.
 
     The same primal-dual iteration, written with batched contractions; the
     per-iteration Newton systems for the whole batch go through one
-    lane-major batched Cholesky (Pallas on TPU, jnp.linalg elsewhere) —
+    batched Cholesky (pallas_kernels.solve_batched / solve_multi_batched) —
     this is the hot path of branch sweeps (hundreds of tiny QPs per step).
     Equality constraints are handled by block elimination: with
     W = Hbar^-1 [g_bar, E^T], the p x p Schur system gives dnu, then dz.
@@ -590,8 +571,7 @@ def solve_qp_batch(qp: QP, z0: jax.Array, *, iters: int = 30, tol: float | None 
 # ---------------------------------------------------------------------------
 
 
-@partial(jax.jit, static_argnames=("num_horizon", "iters", "stage_parallel"))
-@_highp
+@partial(numerics.jit, static_argnames=("num_horizon", "iters", "stage_parallel"))
 def solve_ocp_qp(
     A: jax.Array,  # (n, n) LTI dynamics
     B: jax.Array,  # (n, m)
@@ -813,8 +793,7 @@ def solve_ocp_qp(
 # ---------------------------------------------------------------------------
 
 
-@partial(jax.jit, static_argnames=("c_nl", "iters"))
-@_highp
+@partial(numerics.jit, static_argnames=("c_nl", "iters"))
 def solve_qp_nl(
     H: jax.Array,
     g: jax.Array,
@@ -835,8 +814,8 @@ def solve_qp_nl(
     ``c_nl(z) -> (vals (m2,), jac (m2, n))`` supplies the nonlinear rows
     *with their Jacobian in closed form* — for the CBF controllers this
     replaces jacfwd through the whole constraint closure with a few tiny
-    matmuls, cutting the traced graph (and the remote-compile time on TPU)
-    by an order of magnitude.  Gauss-Newton Hessian (= H, constant PSD).
+    matmuls, cutting the traced graph (and the compile time) by an order
+    of magnitude.  Gauss-Newton Hessian (= H, constant PSD).
 
     ``lam0``/``s0`` enable primal-DUAL warm starting: a primal-only warm
     start re-initializes lam = 0.1/s, which for problems with large penalty
@@ -911,7 +890,7 @@ def solve_qp_nl(
         Hbar = H + (Ji.T * sl) @ Ji + 1e-9 * jnp.eye(n, dtype=dtype)
         g_bar = -gL + Ji.T @ r_bar
         # Hbar is SPD (convex QP Hessian + sl-weighted Gram + ridge):
-        # Cholesky instead of pivoted LU — pivoting serializes on TPU.
+        # Cholesky instead of pivoted LU, whose pivoting serializes.
         dz = jax.scipy.linalg.cho_solve(
             (jnp.linalg.cholesky(Hbar), True), g_bar[:, None]
         )[:, 0]
@@ -967,6 +946,6 @@ def solve_qp_nl(
         kkt_res=res,
         # real Newton-iteration count (first pass under tol; = the cap when
         # the budget was exhausted) — feeds the cbf_newton_iters_per_s
-        # BASELINE metric; never a constant fill (VERDICT r2 missing #4)
+        # BASELINE metric; never a constant fill
         iterations=jnp.where(done_iter < 0, cap, done_iter),
     )

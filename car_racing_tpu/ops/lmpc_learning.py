@@ -1,6 +1,6 @@
 """LMPC learning ops: cost-to-go, safe-set selection, local regression.
 
-TPU-first rebuild of the reference's lmpc_helper (car_racing/control/
+Accelerator-first rebuild of the reference's lmpc_helper (car_racing/control/
 lmpc_helper.py):
 
 - :func:`compute_cost`    (lmpc_helper.py:11-23)  — reverse lax.scan DP.
@@ -30,12 +30,13 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
+from ..utils import numerics
 from ..utils.constants import U_DIM, X_DIM
 
 SENTINEL = 1e4
 
 
-@jax.jit
+@numerics.jit
 def compute_cost(xcurv: jax.Array, lap_length: jax.Array) -> jax.Array:
     """Backward-DP cost-to-go: steps remaining until s crosses lap_length
     (lmpc_helper.py:11-23).  xcurv: (T, X_DIM). Returns (T,)."""
@@ -70,7 +71,7 @@ def compute_cost_host(xcurv, lap_length) -> "np.ndarray":
     return costs
 
 
-@partial(jax.jit, static_argnames=("num_points",))
+@partial(numerics.jit, static_argnames=("num_points",))
 def select_points(
     ss_iter: jax.Array,  # (P, X_DIM) safe set of one iteration (sentinel-padded)
     qfun_iter: jax.Array,  # (P,)
@@ -105,7 +106,7 @@ def _kernel_weights(data_zu: jax.Array, valid: jax.Array, x_lin: jax.Array, max_
     norm = jnp.sum(jnp.abs(diff), axis=1)
     norm = jnp.where(valid, norm, jnp.inf)
     # top_k instead of argsort: a full bitonic sort over all P rows per
-    # stage is the dominant cost of estimate_ABC on TPU; top_k returns the
+    # stage was the dominant cost of estimate_ABC; top_k returns the
     # same max_pts nearest points (tie ORDER may differ — weights are equal
     # on ties, so the fit is unchanged)
     neg_norm, idx = jax.lax.top_k(-norm, max_pts)
@@ -154,7 +155,7 @@ def _kinematic_rows(curv, xcurv, dt):
     return A_rows, C_rows
 
 
-@partial(jax.jit, static_argnames=("max_pts",))
+@partial(numerics.jit, static_argnames=("max_pts",))
 def regression_and_linearization(
     x_lin_state: jax.Array,  # (X_DIM,) linearization state (lin_points[i])
     u_lin: jax.Array,  # (U_DIM,) linearization input

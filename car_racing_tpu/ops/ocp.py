@@ -46,7 +46,7 @@ def prediction_matrices(A_seq: jax.Array, B_seq: jax.Array, C_seq: jax.Array, x0
 
     # sensitivity of x_{k+1} to u_j: S_j(k) = A_k ... A_{j+1} B_j, built by a
     # masked scan per input index (a select, not a scatter — scatter-in-scan
-    # compiles pathologically on some TPU toolchains)
+    # compiles pathologically on some accelerator toolchains)
     def per_input(j):
         Bj = B_seq[j]
 
@@ -75,7 +75,7 @@ def condense_lti(A, B, N: int, x0):
     """LTI fast path of :func:`condense` — closed form via matrix powers.
 
     Avoids the scatter-in-scan pattern of the TV path (which compiles
-    pathologically slowly on some TPU toolchains when vmapped): builds
+    pathologically slowly on some accelerator toolchains when vmapped): builds
     P[i] = A^i with one scan, then assembles the block-Toeplitz input map
     G[k, j] = A^(k-1-j) B by gather + mask.  Returns (phi (N*n), G (N*n, N*m)).
     """

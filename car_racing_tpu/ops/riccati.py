@@ -22,8 +22,10 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
+from ..utils import numerics
 
-@partial(jax.jit, static_argnames=("max_iter",))
+
+@partial(numerics.jit, static_argnames=("max_iter",))
 def dare_iterate(A, B, Q, R, max_iter: int = 50, eps: float = 1e-2):
     """Iterate P <- A'PA - A'PB (R + B'PB)^-1 B'PA + Q from P0 = Q.
 
@@ -53,10 +55,10 @@ def sym2x2_clamped_inv(M, reg):
 
     For ``M = [[a, b], [b, c]]`` the eigenpairs are ``m ± r`` with
     ``m = (a+c)/2``, ``r = hypot((a-c)/2, b)`` and eigenvector angle
-    ``theta = atan2(2b, a-c)/2`` (smooth at b = 0).  On TPU this replaces
-    ``jnp.linalg.eigh`` — whose QR-iteration lowering dominated both compile
-    time (~250 s for the iLQR nested scans) and runtime — with a handful of
-    fused VPU ops."""
+    ``theta = atan2(2b, a-c)/2`` (smooth at b = 0).  This replaces
+    ``jnp.linalg.eigh`` — whose iterative lowering dominated both compile
+    time for the iLQR nested scans and runtime — with a handful of fused
+    elementwise ops."""
     a, b, c = M[0, 0], 0.5 * (M[0, 1] + M[1, 0]), M[1, 1]
     m = 0.5 * (a + c)
     r = jnp.hypot(0.5 * (a - c), b)
@@ -145,9 +147,9 @@ def tvlqr_rollout(A, B, x0, u_ref, x_ref, ks, Ks):
 # ---------------------------------------------------------------------------
 # Temporal-parallel (associative-scan) LQR — SURVEY §5.7's north star: the
 # horizon-structured KKT factorization parallelized OVER STAGES, cutting the
-# backward pass's sequential depth from O(N) to O(log N).  On TPU, where the
-# per-stage matrices are tiny (n=6, m=2) and each sequential scan step costs
-# issue/VMEM latency rather than FLOPs, depth is exactly what the sequential
+# backward pass's sequential depth from O(N) to O(log N).  The per-stage
+# matrices are tiny (n=6, m=2) and each sequential scan step costs launch
+# latency rather than FLOPs, so depth is exactly what the sequential
 # recursion is bound by.
 #
 # Formulation (public technique: Särkkä & García-Fernández, "Temporal

@@ -33,6 +33,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..utils import numerics
+
 _S_TOL = 1e-3  # segment-membership tolerance, matches racing_env.py:12
 
 
@@ -153,7 +155,7 @@ def _segment_mask(track: Track, s: jax.Array) -> jax.Array:
     return jax.nn.one_hot(idx, track.num_segments, dtype=s.dtype)
 
 
-@jax.jit
+@numerics.jit
 def curvature(track: Track, s: jax.Array) -> jax.Array:
     """Signed curvature at arc length s (reference racing_env.py:225-246).
 
@@ -180,7 +182,7 @@ def _arc_geometry(track: Track):
     return is_arc, R, direction, theta0
 
 
-@jax.jit
+@numerics.jit
 def frenet_to_global_xy(track: Track, s: jax.Array, ey: jax.Array) -> jax.Array:
     """(s, ey) -> (X, Y) (reference get_global_position, racing_env.py:6-69)."""
     s = wrap_s(track, s)
@@ -209,7 +211,7 @@ def frenet_to_global_xy(track: Track, s: jax.Array, ey: jax.Array) -> jax.Array:
     return jnp.sum(mask[:, None] * cand, axis=0)
 
 
-@jax.jit
+@numerics.jit
 def frenet_to_global_psi(track: Track, s: jax.Array, ey: jax.Array) -> jax.Array:
     """Centerline tangent angle at s (reference get_orientation,
     racing_env.py:72-127; see module docstring for the right-arc fix)."""
@@ -224,7 +226,7 @@ def frenet_to_global_psi(track: Track, s: jax.Array, ey: jax.Array) -> jax.Array
     return wrap_angle(psi)
 
 
-@jax.jit
+@numerics.jit
 def frenet_to_global_state(track: Track, xcurv: jax.Array) -> jax.Array:
     """Full xcurv -> xglob conversion ([vx,vy,wz,epsi,s,ey] ->
     [vx,vy,wz,psi,X,Y]); psi = tangent + epsi."""
@@ -233,7 +235,7 @@ def frenet_to_global_state(track: Track, xcurv: jax.Array) -> jax.Array:
     return jnp.concatenate([xcurv[:3], jnp.array([psi]), xy])
 
 
-@jax.jit
+@numerics.jit
 def global_to_frenet(track: Track, x: jax.Array, y: jax.Array, psi: jax.Array):
     """(X, Y, psi) -> (s, ey, epsi, ok) (reference get_local_position,
     racing_env.py:130-222), as a masked scan over all segments.

@@ -1,16 +1,16 @@
 """Device-mesh parallelism: the racing game's corridor branch sweep over
-TPU meshes.
+device meshes.
 
 The reference's flagship parallel component is the overtake trajectory
 planner's per-corridor NLP fan-out — one OS process per corridor, results
 gathered through Manager dicts (overtake_traj_planner.py:177-204), branch
-selection on the host (:205-244).  The TPU-native design (SURVEY §2
+selection on the host (:205-244).  The mesh design (SURVEY §2
 parallelism inventory): the SAME corridor QP the planner solves
 (planning/overtake.corridor_branch_qp — Bezier references, gated corridor
 no-overlap rows, kinematic fallback, progress/collision/hysteresis
 selection) is vmapped per chip and sharded across a mesh with
 ``shard_map``; best-branch selection rides XLA collectives
-(all_gather + psum) over ICI instead of Manager dicts.
+(all_gather + psum) between devices instead of Manager dicts.
 
 Axes:
 - ``scenario`` — data parallelism over independent racing games / vehicles
@@ -31,6 +31,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..ops import ipm, ocp
 from ..planning import overtake as ov
+from ..utils import numerics
 from ..utils.constants import U_DIM, X_DIM
 
 
@@ -51,7 +52,7 @@ def make_branch_mesh(n_devices: int | None = None):
     return Mesh(np.asarray(devs).reshape(1, len(devs)), ("scenario", "branch"))
 
 
-# Bounded LRU like _FLEET_CACHE below (VERDICT r4 weak #6): each entry
+# Bounded LRU like _FLEET_CACHE below: each entry
 # pins a compiled sharded program AND its Mesh, so an unbounded dict would
 # grow without limit in a long-lived process sweeping horizons/meshes.
 _SWEEP_CACHE: OrderedDict = OrderedDict()
@@ -110,7 +111,7 @@ def sweep_program(mesh: Mesh, num_horizon: int, dtype):
     """The cached jitted sweep program for (mesh, horizon, dtype) — exposed
     so the scaling harness can ``.lower(...).compile()`` it and read the
     ACTUAL collective ops/bytes out of the compiled HLO instead of
-    hand-computing them (VERDICT r4 weak #4)."""
+    hand-computing them."""
     N = num_horizon
     dtype = jnp.dtype(dtype)
     cache_key = (mesh, N, dtype.name)
@@ -151,11 +152,9 @@ def sweep_program(mesh: Mesh, num_horizon: int, dtype):
         br_idx = my_rank * BR_l + jnp.arange(BR_l)
 
         # per-scenario QP BUILD (branch-invariant condensed prediction built
-        # once per scenario), then ONE flat (S_l*BR_l)-problem IPM solve.
-        # Solving per scenario under vmap ran the Pallas lane-major Cholesky
-        # with an inner batch of BR_l~4, padded to its 128-lane minimum, S_l
-        # times over — measured 3.3x slower than the flat batch at the
-        # 256-solve bench shape (5.25 ms -> 1.57 ms for build+solve).
+        # once per scenario), then ONE flat (S_l*BR_l)-problem IPM solve, so
+        # the batched factorization sees one large batch instead of S_l
+        # batches of BR_l~4.
         def build_scenario(x0, bez_s, ley, lg, rey, rg):
             phi, G, s_pred = ov.corridor_context(x0, A, B, N)
             qp = jax.vmap(
@@ -212,7 +211,7 @@ def sweep_program(mesh: Mesh, num_horizon: int, dtype):
         )
         return best, X_best, costs, conv, X, iters_s
 
-    compiled = jax.jit(sweep)
+    compiled = numerics.jit(sweep)
     _SWEEP_CACHE[cache_key] = compiled
     while len(_SWEEP_CACHE) > _SWEEP_CACHE_MAX:
         _SWEEP_CACHE.popitem(last=False)
@@ -290,13 +289,14 @@ def fleet_rollout(
     )
     def run(tr, bp, lp, rp, sp, xc_l, xg_l, *sh):
         # throughput path: opt into the unrolled substep scan explicitly
-        # (the batch entry point defaults to 1 for bitwise consistency)
+        # (the batch entry point defaults to 1 for bitwise consistency);
+        # only the scan reads it — on CUDA the integrator kernel runs
         return fused.rollout_racing_game_batch(
             tr, bp, lp, rp, sp, xc_l, xg_l, *sh, n_steps=n_steps,
             dynamics_unroll=10,
         )
 
-    compiled = jax.jit(run)
+    compiled = numerics.jit(run)
     _fleet_cache_put(key, compiled)
     return compiled(*args)
 
@@ -362,7 +362,7 @@ def learning_fleet(
             dynamics_unroll=10,
         )
 
-    compiled = jax.jit(run)
+    compiled = numerics.jit(run)
     _fleet_cache_put(key, compiled)
     return compiled(*args)
 
@@ -371,9 +371,9 @@ def safe_set_exchange(mesh: Mesh, lap_traj: jax.Array):
     """All-gather each scenario shard's newest lap trajectory so every
     device holds the full safe set (the LMPC safe-set exchange of SURVEY
     §5.8; replaces pickle/ROS transport).  Expressed as a resharding —
-    XLA inserts the all-gather collective over ICI."""
+    XLA inserts the all-gather collective."""
     sharded = jax.device_put(lap_traj, NamedSharding(mesh, P("scenario")))
-    return jax.jit(lambda x: x, out_shardings=NamedSharding(mesh, P()))(sharded)
+    return numerics.jit(lambda x: x, out_shardings=NamedSharding(mesh, P()))(sharded)
 
 
 def dryrun(n_devices: int) -> None:

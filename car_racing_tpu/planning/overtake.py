@@ -34,6 +34,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ops import bezier, ipm, ocp, track as track_ops
+from ..utils import numerics
 from ..utils.constants import U_DIM, X_DIM
 
 
@@ -218,7 +219,7 @@ def branch_selection_cost(
     return cost + jnp.where((old_dir >= 0) & (br_idx != old_dir), 100.0, 0.0)
 
 
-@partial(jax.jit, static_argnames=("num_horizon",))
+@partial(numerics.jit, static_argnames=("num_horizon",))
 def _solve_branch_batch(
     xcurv_ego: jax.Array,  # (X_DIM,)
     A: jax.Array,
@@ -241,7 +242,7 @@ def _solve_branch_batch(
     phi, G, s_pred = corridor_context(xcurv_ego, A, B, N)
 
     # build every corridor's QP, then solve the whole batch through one
-    # batched interior point (Pallas lane-major Cholesky on TPU)
+    # batched interior point (one batched Cholesky per Newton step)
     qp_batch = jax.vmap(
         lambda bez, ley, lg, rey, rg: corridor_branch_qp(
             phi, G, s_pred, track_width, veh_width, bez, ley, lg, rey, rg, N
@@ -548,7 +549,7 @@ class OvertakeTrajPlanner:
 # ---------------------------------------------------------------------------
 
 
-@partial(jax.jit, static_argnames=("num_horizon",))
+@partial(numerics.jit, static_argnames=("num_horizon",))
 def _solve_path_batch(
     ey0: jax.Array,  # () ego current ey
     eyN: jax.Array,  # (n_br,) terminal ey per corridor (bezier cp3)

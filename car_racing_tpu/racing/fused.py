@@ -1,7 +1,7 @@
 """Fused on-device closed-loop rollouts.
 
 The reference's simulation loop crosses the Python/C++ boundary at every
-control step (offboard.py:124-127 -> IPOPT).  TPU-native deployment fuses
+control step (offboard.py:124-127 -> IPOPT).  On-device deployment fuses
 the whole receding-horizon loop — MPC solve, 100 dynamics substeps, state
 handoff, warm-start shift — into ONE jitted ``lax.scan``, so a full lap
 executes on-device with zero host round-trips.  This is the latency story
@@ -21,13 +21,12 @@ import jax.numpy as jnp
 
 from ..models import controllers
 from ..ops import bezier as bezier_mod, dynamics, lmpc_learning, track as track_ops
-from ..ops.ipm import _highp
+from ..utils import numerics
 from ..utils.constants import U_DIM, X_DIM
 from ..utils.params import LMPCParam, MPCCBFParam, MPCParam, SystemParam
 
 
-@partial(jax.jit, static_argnames=("n_steps", "control_dt", "sub_dt"))
-@_highp
+@partial(numerics.jit, static_argnames=("n_steps", "control_dt", "sub_dt"))
 def rollout_mpc_tracking(
     track: track_ops.Track,
     bike_params: dynamics.BicycleParams,
@@ -76,10 +75,9 @@ def rollout_mpc_tracking(
 
 
 @partial(
-    jax.jit,
+    numerics.jit,
     static_argnames=("n_steps", "control_dt", "sub_dt", "cold_iters", "warm_iters"),
 )
-@_highp
 def rollout_mpccbf(
     track: track_ops.Track,
     bike_params: dynamics.BicycleParams,
@@ -177,8 +175,7 @@ def rollout_mpccbf(
     return xcurvs, us, kkts, its
 
 
-@partial(jax.jit, static_argnames=("n_steps", "control_dt", "sub_dt", "warm_start"))
-@_highp
+@partial(numerics.jit, static_argnames=("n_steps", "control_dt", "sub_dt", "warm_start"))
 def rollout_ilqr(
     track: track_ops.Track,
     bike_params: dynamics.BicycleParams,
@@ -256,69 +253,25 @@ def rollout_ilqr(
     return xcurvs, us, its
 
 
-@partial(jax.jit, static_argnames=("n_steps", "control_dt", "sub_dt", "dynamics_backend"))
-@_highp
-def rollout_lmpc_lap(
-    track: track_ops.Track,
-    bike_params: dynamics.BicycleParams,
-    lmpc_param: LMPCParam,
-    sys_param: SystemParam,
-    xcurv0: jax.Array,
-    xglob0: jax.Array,
-    ss_prev: jax.Array,  # (P, X_DIM) safe set of lap iter-1 (sentinel-padded)
-    qfun_prev: jax.Array,  # (P,) its cost-to-go (fully backfilled)
-    ss_prev2: jax.Array,  # (P, X_DIM) lap iter-2
-    qfun_prev2: jax.Array,  # (P,)
-    u_prev_lap: jax.Array,  # (P, U_DIM) inputs of lap iter-1 (regression data)
-    u_prev2_lap: jax.Array,  # (P, U_DIM) lap iter-2
-    valid_prev: jax.Array,  # (P,) bool regression-row mask of lap iter-1
-    valid_prev2: jax.Array,  # (P,)
-    counter: jax.Array,  # () int32: time_ss[iter-1] (append offset)
-    lin_points0: jax.Array,  # (N+1, X_DIM) initial linearization states
-    lin_input0: jax.Array,  # (N, U_DIM)
-    n_steps: int = 400,
-    control_dt: float = 0.1,
-    sub_dt: float = 0.001,
-    dynamics_backend: str = "auto",
+def _lmpc_lap_step(
+    track, bike_params, lmpc_param, sys_param, ss_prev2, qfun_prev, qfun_prev2,
+    u_prev_lap, u_prev2_lap, valid_prev, valid_prev2, counter,
+    control_dt, sub_dt, dynamics_backend,
 ):
-    """One full LMPC learning lap entirely on-device.
-
-    ``dynamics_backend`` is forwarded to dynamics.propagate — the TPU gate
-    (tests/test_tpu_native.py) uses it to run the SAME closed lap with the
-    scan integrator vs the fused Pallas kernel on real silicon.
-
-    The safe-set arrays live in the scan carry: every step runs the local
-    regression (kernel-weighted batched linear solves), safe-set point
-    selection, the convex-hull terminal QP, the dynamics substeps, AND the
-    reference's ``add_point`` append (base.py:624-629) — the current lap's
-    states are written into lap iter-1's array at ``counter + k + 1`` with
-    s shifted by one lap length, which is what lets the selection window
-    run past the lap boundary.  This kills the per-step Python->IPOPT
-    boundary of the reference's LMPC loop (base.py:456-501) the same way
-    rollout_mpc_tracking does for MPC-LTI.
-
-    The appended inputs are NOT written back (host add_point stores them,
-    but nothing reads them: the regression's validity mask is fixed at lap
-    start, base.py:592-599).
-
-    Stops learning updates once s crosses the lap length (``done``); the
-    scan runs the fixed n_steps regardless.  Returns (xcurv_traj
-    (n_steps+1, X), u_traj (n_steps, U), done (n_steps,) bool, lap_steps).
-    """
+    """The control step of :func:`rollout_lmpc_lap` as ``step(carry, k) ->
+    (carry, (xcurv, u, done))``, with carry ``(xcurv, xglob, ss1,
+    lin_points, lin_input, u_prev, z_warm, done)``."""
     N = lmpc_param.num_horizon
     K_per = lmpc_param.num_ss_points // lmpc_param.num_ss_iter
-    dtype = xcurv0.dtype
+    dtype = ss_prev2.dtype
     L = track.lap_length.astype(dtype)
     W = track.width.astype(dtype)
-    P = ss_prev.shape[0]
+    P = ss_prev2.shape[0]
     n_u = N * U_DIM
-    K = lmpc_param.num_ss_points
 
     ss_data_2 = ss_prev2
     u_data = jnp.stack([u_prev2_lap, u_prev_lap])
     valid = jnp.stack([valid_prev2, valid_prev])
-
-    z_warm0 = jnp.zeros(n_u + K, dtype).at[n_u:].set(1.0 / K)
 
     def step(carry, k):
         xcurv, xglob, ss1, lin_points, lin_input, u_prev, z_warm, done = carry
@@ -388,6 +341,77 @@ def rollout_lmpc_lap(
         )
         return carry_next, (xcurv, u, done)
 
+    return step
+
+
+@partial(
+    numerics.jit,
+    static_argnames=("n_steps", "control_dt", "sub_dt", "dynamics_backend", "return_carries"),
+)
+def rollout_lmpc_lap(
+    track: track_ops.Track,
+    bike_params: dynamics.BicycleParams,
+    lmpc_param: LMPCParam,
+    sys_param: SystemParam,
+    xcurv0: jax.Array,
+    xglob0: jax.Array,
+    ss_prev: jax.Array,  # (P, X_DIM) safe set of lap iter-1 (sentinel-padded)
+    qfun_prev: jax.Array,  # (P,) its cost-to-go (fully backfilled)
+    ss_prev2: jax.Array,  # (P, X_DIM) lap iter-2
+    qfun_prev2: jax.Array,  # (P,)
+    u_prev_lap: jax.Array,  # (P, U_DIM) inputs of lap iter-1 (regression data)
+    u_prev2_lap: jax.Array,  # (P, U_DIM) lap iter-2
+    valid_prev: jax.Array,  # (P,) bool regression-row mask of lap iter-1
+    valid_prev2: jax.Array,  # (P,)
+    counter: jax.Array,  # () int32: time_ss[iter-1] (append offset)
+    lin_points0: jax.Array,  # (N+1, X_DIM) initial linearization states
+    lin_input0: jax.Array,  # (N, U_DIM)
+    n_steps: int = 400,
+    control_dt: float = 0.1,
+    sub_dt: float = 0.001,
+    dynamics_backend: str = "auto",
+    return_carries: bool = False,
+):
+    """One full LMPC learning lap entirely on-device.
+
+    ``dynamics_backend`` is forwarded to dynamics.propagate — the GPU tier
+    (tests/test_gpu.py) uses it to run the SAME closed lap with the scan
+    integrator vs the fused integrator kernel on the card.
+
+    The safe-set arrays live in the scan carry: every step runs the local
+    regression (kernel-weighted batched linear solves), safe-set point
+    selection, the convex-hull terminal QP, the dynamics substeps, AND the
+    reference's ``add_point`` append (base.py:624-629) — the current lap's
+    states are written into lap iter-1's array at ``counter + k + 1`` with
+    s shifted by one lap length, which is what lets the selection window
+    run past the lap boundary.  This kills the per-step Python->IPOPT
+    boundary of the reference's LMPC loop (base.py:456-501) the same way
+    rollout_mpc_tracking does for MPC-LTI.
+
+    The appended inputs are NOT written back (host add_point stores them,
+    but nothing reads them: the regression's validity mask is fixed at lap
+    start, base.py:592-599).
+
+    Stops learning updates once s crosses the lap length (``done``); the
+    scan runs the fixed n_steps regardless.  Returns (xcurv_traj
+    (n_steps+1, X), u_traj (n_steps, U), done (n_steps,) bool, lap_steps),
+    and with ``return_carries`` also the carry entering every step (stacked
+    along a leading n_steps axis), which :func:`lmpc_lap_replay` takes.
+    """
+    N = lmpc_param.num_horizon
+    dtype = xcurv0.dtype
+    n_u = N * U_DIM
+    K = lmpc_param.num_ss_points
+    step = _lmpc_lap_step(
+        track, bike_params, lmpc_param, sys_param, ss_prev2, qfun_prev, qfun_prev2,
+        u_prev_lap, u_prev2_lap, valid_prev, valid_prev2, counter,
+        control_dt, sub_dt, dynamics_backend,
+    )
+    if return_carries:
+        step_fn = lambda c, k: (lambda nc, y: (nc, (y, c)))(*step(c, k))
+    else:
+        step_fn = step
+
     init = (
         xcurv0,
         xglob0,
@@ -395,22 +419,43 @@ def rollout_lmpc_lap(
         lin_points0,
         lin_input0,
         jnp.zeros(U_DIM, dtype),
-        z_warm0,
+        jnp.zeros(n_u + K, dtype).at[n_u:].set(1.0 / K),
         jnp.asarray(False),
     )
-    (xcurv_T, _, _, _, _, _, _, _), (xcurvs, us, dones) = jax.lax.scan(
-        step, init, jnp.arange(n_steps)
-    )
-    xcurvs = jnp.concatenate([xcurvs, xcurv_T[None]], axis=0)
+    final, ys = jax.lax.scan(step_fn, init, jnp.arange(n_steps))
+    (xcurvs, us, dones), carries = ys if return_carries else (ys, None)
+    xcurvs = jnp.concatenate([xcurvs, final[0][None]], axis=0)
     lap_steps = jnp.sum(~dones)
+    if return_carries:
+        return xcurvs, us, dones, lap_steps, carries
     return xcurvs, us, dones, lap_steps
 
 
+@partial(numerics.jit, static_argnames=("control_dt", "sub_dt", "dynamics_backend"))
+def lmpc_lap_replay(
+    track, bike_params, lmpc_param, sys_param, ss_prev2, qfun_prev, qfun_prev2,
+    u_prev_lap, u_prev2_lap, valid_prev, valid_prev2, counter,
+    carries, ks,
+    control_dt: float = 0.1,
+    sub_dt: float = 0.001,
+    dynamics_backend: str = "auto",
+):
+    """One control step of :func:`rollout_lmpc_lap` from each of a batch
+    of recorded carries (``return_carries=True``) at step indices ``ks``:
+    the same step, fed the same inputs, on whatever device the arguments
+    live on.  Returns the batch of next carries."""
+    step = _lmpc_lap_step(
+        track, bike_params, lmpc_param, sys_param, ss_prev2, qfun_prev, qfun_prev2,
+        u_prev_lap, u_prev2_lap, valid_prev, valid_prev2, counter,
+        control_dt, sub_dt, dynamics_backend,
+    )
+    return jax.vmap(lambda c, k: step(c, k)[0])(carries, ks)
+
+
 @partial(
-    jax.jit,
+    numerics.jit,
     static_argnames=("n_laps", "n_steps", "control_dt", "sub_dt", "dynamics_unroll"),
 )
-@_highp
 def rollout_lmpc_learning(
     track: track_ops.Track,
     bike_params: dynamics.BicycleParams,
@@ -596,13 +641,12 @@ def rollout_lmpc_learning(
 
 
 @partial(
-    jax.jit,
+    numerics.jit,
     static_argnames=(
         "n_steps", "control_dt", "sub_dt", "tracker_iters", "tracker_iters_cold",
         "dynamics_unroll",
     ),
 )
-@_highp
 def rollout_racing_game(
     track: track_ops.Track,
     bike_params: dynamics.BicycleParams,
@@ -696,13 +740,16 @@ def rollout_racing_game(
     # live; the episode's FIRST tracker solve ignores it (warm=None cold
     # path, exactly the host's _z_warm_ma = None protocol) and every
     # later step carries the shifted triple.  Sized to the host tracker's
-    # MAX_OBSTACLES-row layout (policies.py:565-567).
+    # MAX_OBSTACLES-row layout (policies.py:565-567).  The fourth entry
+    # says whether the triple may seed the next solve: False here, and
+    # after a failed solve (controllers.WARM_RES_MAX).
     nz_t = Nc * U_DIM + _N_OBS * (Nc + 1)
     m_t = 2 * Nc * U_DIM + 4 * Nc + _N_OBS * (Nc + 1) + _N_OBS * Nc
     warm_ma_cold = (
         jnp.zeros(nz_t, dtype).at[Nc * U_DIM :].set(0.1),
         jnp.full((m_t,), 1.0, dtype),
         jnp.full((m_t,), 0.1, dtype),
+        jnp.asarray(False),
     )
 
     def obs_forecast(t, horizon):
@@ -857,15 +904,18 @@ def rollout_racing_game(
         # warm_select merges both configurations into ONE traced solve
         # (bit-identical per configuration, see mpc_multi_agents) so
         # vmapped fleets run one tracker solve per lane, not two branches.
+        # A solve that failed (residual above WARM_RES_MAX) seeds nothing:
+        # the step after it solves cold, as the host does.
         u0, U, Xp, sol = controllers.mpc_multi_agents(
             x, x_targets, rg_param.A, rg_param.B, rg_param.Q, rg_param.R,
             sys_param, W, obs_tr, row_active & gate, agent_half,
             obs_halfs_t, L,
             iters=tracker_iters_cold,
-            warm_select=(old_dir >= 0, warm_ma),
+            warm_select=((old_dir >= 0) & warm_ma[3], warm_ma[:3]),
             iters_warm=tracker_iters,
         )
-        warm_ma_next = controllers.shift_cbf_warm(sol, Nc, _N_OBS)
+        warm_ma_next = (*controllers.shift_cbf_warm(sol, Nc, _N_OBS),
+                        sol.kkt_res < controllers.WARM_RES_MAX)
         lin_points_next = jnp.concatenate([Xp[1:], Xp[-1:]], axis=0)
         lin_input_next = jnp.concatenate([U[1:], U[-1:]], axis=0)
         pad_p = N + 1 - lin_points_next.shape[0]
@@ -953,13 +1003,12 @@ def rollout_racing_game(
 
 
 @partial(
-    jax.jit,
+    numerics.jit,
     static_argnames=(
         "n_steps", "control_dt", "sub_dt", "tracker_iters", "tracker_iters_cold",
         "dynamics_unroll",
     ),
 )
-@_highp
 def rollout_racing_game_batch(
     track, bike_params, lmpc_param, rg_param, sys_param,
     xcurv0_batch, xglob0_batch,  # (B, X_DIM) per-scenario starts
@@ -979,10 +1028,10 @@ def rollout_racing_game_batch(
     ``dynamics_unroll`` defaults to 1 like the single-lane rollout it
     vmaps, keeping the public batch entry point bitwise-consistent with
     it (unroll changes XLA fusion and drifts closed loops — golden-
-    breaking elsewhere in the repo).  Throughput call sites (bench.py,
-    parallel/mesh.fleet_rollout) opt into ``dynamics_unroll=10``
-    explicitly, which halves the substep scan's sequential-dynamics
-    floor (see ops/dynamics.propagate)."""
+    breaking elsewhere in the repo).  parallel/mesh.fleet_rollout opts
+    into ``dynamics_unroll=10``, which shortens the substep scan's
+    sequential chain where the scan runs; on CUDA the integrator kernel
+    runs instead and the knob has no effect (see ops/dynamics.propagate)."""
     fn = lambda xc, xg: rollout_racing_game(
         track, bike_params, lmpc_param, rg_param, sys_param, xc, xg,
         ss_prev, qfun_prev, ss_prev2, qfun_prev2,
@@ -996,10 +1045,9 @@ def rollout_racing_game_batch(
 
 
 @partial(
-    jax.jit,
+    numerics.jit,
     static_argnames=("n_laps", "n_steps", "control_dt", "sub_dt", "dynamics_unroll"),
 )
-@_highp
 def rollout_lmpc_learning_batch(
     track, bike_params, lmpc_param, sys_param,
     xcurv0_batch, xglob0_batch,  # (B, X_DIM) per-lane starts
@@ -1027,8 +1075,7 @@ def rollout_lmpc_learning_batch(
     return jax.vmap(fn)(xcurv0_batch, xglob0_batch)
 
 
-@partial(jax.jit, static_argnames=("n_steps", "control_dt", "sub_dt"))
-@_highp
+@partial(numerics.jit, static_argnames=("n_steps", "control_dt", "sub_dt"))
 def rollout_mpc_tracking_batch(
     track, bike_params, mpc_param, sys_param, xtarget, xcurv0_batch, xglob0_batch,
     n_steps: int = 100, control_dt: float = 0.1, sub_dt: float = 0.001,

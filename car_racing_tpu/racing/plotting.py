@@ -12,14 +12,20 @@ from __future__ import annotations
 
 import numpy as np
 
-import matplotlib
-
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt
-import matplotlib.animation as anim
-import matplotlib.patches as patches
-
 from ..ops import track as track_ops
+
+
+def _mpl():
+    """matplotlib on first use (headless Agg), so importing this module
+    costs nothing where nothing is plotted."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.animation as anim
+    import matplotlib.patches as patches
+    import matplotlib.pyplot as plt
+
+    return plt, anim, patches
 
 
 def plot_track(ax, track, center_line=True, points_per_meter=100):
@@ -33,6 +39,7 @@ def plot_track(ax, track, center_line=True, points_per_meter=100):
 
 def plot_state(sim, name, save_path=None):
     """4-pane state history (vx, vy, epsi, ey) (offboard.py:133-181)."""
+    plt = _mpl()[0]
     traj = sim.full_trajectory(name, kind="xcurv")
     time = np.arange(len(traj)) * sim.timestep
     fig, axs = plt.subplots(4, figsize=(8, 10))
@@ -50,6 +57,7 @@ def plot_state(sim, name, save_path=None):
 
 def plot_input(sim, name, save_path=None):
     """Steering/acceleration history (offboard.py:188-225)."""
+    plt = _mpl()[0]
     veh = sim.vehicles[name]
     u = np.asarray([u for lap in veh.inputs for u in lap] + list(veh.lap_inputs))
     time = np.arange(len(u)) * sim.timestep
@@ -69,6 +77,7 @@ def plot_input(sim, name, save_path=None):
 
 def plot_simulation(sim, save_path=None):
     """Global trajectories of every vehicle over the track (offboard.py:232-266)."""
+    plt = _mpl()[0]
     fig, ax = plt.subplots()
     plot_track(ax, sim.track)
     for name in sim.vehicles:
@@ -118,6 +127,7 @@ def build_animation(sim, ani_time=400, racing_game=False):
 
     Returns (fig, update, n_frames, artists) where artists maps
     'branch_splines'/'branch_trajs' to the per-branch Line2D lists."""
+    plt, _, patches = _mpl()
     ego = sim.vehicles["ego"]
     n_frames = min(ani_time, len(ego.xglob_log))
     artists = {}
@@ -218,6 +228,7 @@ def animate(sim, filename="simulation", ani_time=400, racing_game=False,
             save_dir="media/animation", fps=10):
     """Render an animation gif of the last ``ani_time`` steps (reference
     offboard.py:268-623, incl. the all-branch spline/trajectory overlays)."""
+    plt, anim, _ = _mpl()
     import os
 
     os.makedirs(save_dir, exist_ok=True)

@@ -623,7 +623,13 @@ class LMPCRacingGame(ControlBase):
                     iters_warm=CBF_ITERS_WARM,
                 )
                 self.u = np.asarray(u0)
-            self._z_warm_ma = _shift_cbf_warm(ma_sol, Nc, MAX_OBSTACLES)
+            # a failed solve (its iterate nowhere near feasible) seeds
+            # nothing: the next step solves cold
+            self._z_warm_ma = (
+                _shift_cbf_warm(ma_sol, Nc, MAX_OBSTACLES)
+                if float(ma_sol.kkt_res) < ctrl.WARM_RES_MAX
+                else None
+            )
             self._z_warm = None  # LMPC resumes cold after the overtake
             x_pred = np.asarray(X)
             # keep linearization points moving during overtakes

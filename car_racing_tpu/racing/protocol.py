@@ -27,6 +27,7 @@ import numpy as np
 
 from ..models import controllers
 from ..ops import dynamics, track as track_ops
+from ..utils import numerics
 from ..utils.constants import U_DIM, X_DIM
 from ..utils.params import LMPCParam, MPCParam, SystemParam
 from . import fused
@@ -34,7 +35,7 @@ from . import fused
 SENTINEL = 1e4
 
 
-@partial(jax.jit, static_argnames=("n_steps", "control_dt", "sub_dt"))
+@partial(numerics.jit, static_argnames=("n_steps", "control_dt", "sub_dt"))
 def rollout_pid(
     track: track_ops.Track,
     bike_params: dynamics.BicycleParams,

@@ -19,11 +19,12 @@ import jax
 import jax.numpy as jnp
 
 from ..ops import dynamics, track as track_ops
+from ..utils import numerics
 from ..utils.constants import U_DIM
 from ..utils.params import CarParam, SystemParam
 
 # Horizon-batched Frenet->global transform (single device call per horizon).
-_frenet_to_global_batch = jax.jit(
+_frenet_to_global_batch = numerics.jit(
     jax.vmap(track_ops.frenet_to_global_state, in_axes=(None, 0))
 )
 

@@ -1,6 +1,6 @@
 // msgbus — a minimal topic-based pub/sub message broker.
 //
-// The TPU-native framework's replacement for the reference's ROS1/TCPROS
+// The framework's replacement for the reference's ROS1/TCPROS
 // transport (reference: catkin/rospy node graph, CMakeLists.txt:13-37,
 // car_racing/racing/realtime/*.py): a single-threaded poll(2) TCP broker
 // that fans published frames out to topic subscribers.  Python nodes speak

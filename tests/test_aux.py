@@ -69,47 +69,53 @@ def test_solve_timer_percentiles():
     assert "solve" in t.report()
 
 
-def test_readme_bench_table_in_sync(repo_root):
-    """The README benchmark table is generated from BENCH_LOCAL.json
-    (round-3 weak #3: a hand-maintained table drifted within one round);
-    at commit time the committed README must match the committed artifact
-    — update_readme() must be a no-op."""
-    from car_racing_tpu.utils import bench_table
+def test_compile_cache_honours_env_dir(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX reads it itself: the helper
+    returns it and changes no setting."""
+    import jax
 
-    assert not bench_table.update_readme(repo_root), (
-        "README bench table is stale — run "
-        "`python -m car_racing_tpu.utils.bench_table` and commit"
-    )
+    from car_racing_tpu.utils import compile_cache
+
+    monkeypatch.setenv(compile_cache.ENV_VAR, str(tmp_path))
+    before = jax.config.jax_compilation_cache_dir
+    assert compile_cache.enable() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
 
 
-def test_bench_table_ignores_driver_dropped_artifacts(repo_root, tmp_path):
-    """Round 4 closed red: the driver's freshly-dropped BENCH_r04.json
-    changed the glob-latest prior-round column and broke the README sync
-    test at judging time (VERDICT r4 weak #3).  The comparison column is
-    now pinned to bench_table.PREV_ROUND_ARTIFACT — a new BENCH_r99.json
-    appearing at repo root must leave the rendered table byte-identical."""
-    import json
+def test_compile_cache_defaults_to_checkout(monkeypatch, repo_root):
+    """Without the variable the cache is ``.jax_cache/`` in the checkout:
+    a fixed path, never a temporary or per-process one."""
     import os
-    import shutil
 
-    from car_racing_tpu.utils import bench_table
+    import jax
 
-    for name in ("README.md", "BENCH_LOCAL.json", bench_table.PREV_ROUND_ARTIFACT):
-        shutil.copy(os.path.join(repo_root, name), tmp_path / name)
-    before = bench_table.render(str(tmp_path))
+    from car_racing_tpu.utils import compile_cache
 
-    # a driver-format artifact with a jsonl tail full of wild numbers
-    rows = "\n".join(
-        json.dumps({"metric": m, "value": 12345.0, "unit": "ms", "vs_baseline": 0.0})
-        for m in ("mpc_step_latency_p99_fused", "branch_sweep_256_latency")
-    )
-    (tmp_path / "BENCH_r99.json").write_text(json.dumps({"tail": rows}))
-    after = bench_table.render(str(tmp_path))
-    assert after == before, "driver-dropped BENCH_r99.json changed the table"
-    # and update_readme stays a no-op on an in-sync tree with the drop present
-    assert bench_table.update_readme(str(tmp_path)) in (True, False)  # no crash
+    monkeypatch.delenv(compile_cache.ENV_VAR, raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        path = compile_cache.enable()
+        assert path == os.path.join(repo_root, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == path
+        assert compile_cache.enable() == path  # stable across calls
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
 
-    # unexpected BENCH_LOCAL.json shapes fail loudly, not with AttributeError
-    (tmp_path / "BENCH_LOCAL.json").write_text(json.dumps({"oops": 1}))
-    with pytest.raises(ValueError, match="list-of-rows"):
-        bench_table.render(str(tmp_path))
+
+@pytest.mark.parametrize("script", ["chip_smoke", "bench"])
+def test_device_entry_points_refuse_the_cpu(script, repo_root, monkeypatch):
+    """chip_smoke.py and bench.py measure the GPU: on a CPU platform they
+    exit non-zero before doing any work, with no CPU fallback."""
+    import importlib
+    import os
+    import sys
+
+    monkeypatch.syspath_prepend(repo_root)
+    monkeypatch.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))  # restored after
+    mod = importlib.import_module(script)
+    entry = (lambda: mod.main([])) if script == "chip_smoke" else mod.main
+    with pytest.raises(SystemExit) as exc:
+        entry()
+    assert exc.value.code not in (0, None)
+    assert "cpu" in str(exc.value.code)
+    sys.modules.pop(script, None)

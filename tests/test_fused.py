@@ -237,8 +237,7 @@ def test_fused_ilqr_warm_start_passes_blocking_car():
 
 def test_fused_lmpc_lap_matches_host_loop():
     """Fused LMPC learning lap (fused.rollout_lmpc_lap) vs the host
-    LMPCRacingGame loop on the SAME seed safe sets with NO traffic
-    (VERDICT r2 missing #3, first half).
+    LMPCRacingGame loop on the SAME seed safe sets with NO traffic.
 
     With no other vehicles the host orchestrator never dispatches onto the
     overtake branch, so both paths solve the identical per-step problem:
@@ -502,8 +501,7 @@ def test_fused_racing_game_lap():
 
 def test_fused_racing_game_matches_host_loop():
     """Fused racing game vs the host LMPCRacingGame loop on the SAME seed
-    safe sets and traffic (VERDICT r2 missing #3; exactness VERDICT r4
-    next #4).
+    safe sets and traffic.
 
     The fused path now solves the IDENTICAL per-step problems as the host
     loop on every branch: the corridor problem is masked down to the
@@ -512,6 +510,28 @@ def test_fused_racing_game_matches_host_loop():
     protocol, and branch selection shares branch_selection_cost.  The
     only remaining difference is floating-point accumulation order, so
     the whole lap — overtake steps included — must agree to 1e-6."""
+    _check_racing_game_fused_vs_host()
+
+
+def test_fused_racing_game_restarts_cold_like_host_loop(monkeypatch):
+    """With every tracker solve counted as failed
+    (``controllers.WARM_RES_MAX = 0``), no solve seeds the next one: both
+    the fused game and the host loop solve every overtake step cold, and
+    they still agree step for step."""
+    import jax
+
+    from car_racing_tpu.models import controllers
+
+    monkeypatch.setattr(controllers, "WARM_RES_MAX", 0.0)
+    jax.clear_caches()  # the bound is read when the fused game is traced
+    try:
+        _check_racing_game_fused_vs_host()
+    finally:
+        monkeypatch.undo()
+        jax.clear_caches()
+
+
+def _check_racing_game_fused_vs_host():
     import jax.numpy as jnp
 
     seed = np.load("data/bench/lmpc_seed_l_shape.npz")

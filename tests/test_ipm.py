@@ -320,7 +320,7 @@ def test_stage_parallel_ocp_matches_sequential():
 
 def test_nonfinite_newton_step_guard():
     """A Newton step that overflows to non-finite (f32 + extreme equality
-    scaling; the production trigger was TPU-f32 LU on a degenerate LMPC
+    scaling; the production trigger was an accelerator's f32 LU on a degenerate LMPC
     hull block near the lap wrap — 2/40 perturbed learning lanes went NaN
     before the guard, 0/40 after) must FREEZE the iterate at the last
     finite point instead of poisoning it: the caller gets a finite
@@ -362,7 +362,7 @@ def test_nonfinite_newton_step_guard():
 
 def test_nonfinite_guard_ocp_qp():
     """The Riccati-KKT path (solve_ocp_qp) has the same freeze-don't-poison
-    contract as its dense siblings (VERDICT r4 weak #5): a TV-LQR sweep
+    contract as its dense siblings: a TV-LQR sweep
     that overflows f32 to inf/NaN must leave the reported iterate at the
     last finite point with converged=False, never NaN."""
     n, m, N = 6, 2, 6

@@ -48,8 +48,7 @@ def test_plots_and_animation(tmp_path):
 def test_racing_game_animation_draws_all_branches(tmp_path):
     """The racing-game zoom pane must render EVERY branch's spline and
     candidate trajectory (reference offboard.py:288-296 creates one artist
-    pair per vehicle+1; VERDICT r4 missing #1: only the selected branch
-    was drawn), with the selected branch highlighted on top."""
+    pair per vehicle+1), with the selected branch highlighted on top."""
     sim = _short_sim()
     ego = sim.vehicles["ego"]
     n = len(ego.xglob_log)
